@@ -33,13 +33,10 @@ def main():
 
     solve = jax.jit(lambda *a: solve_box_qp(*a, config=cfg))
     t0 = time.perf_counter()
-    # Force with a host read: block_until_ready can be lazy on experimental
-    # platforms (remote-compile paths report "ready" at enqueue).
-    _ = float(jnp.sum(solve(*data).x))
+    jax.block_until_ready(solve(*data))
     print(f"compile+solve: {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    sol = solve(*data)
-    _ = float(jnp.sum(sol.x))
+    sol = jax.block_until_ready(solve(*data))
     print(f"forward: {time.perf_counter() - t0:.3f}s  "
           f"iters={int(sol.iterations)} "
           f"converged={bool(jnp.all(sol.converged))}")
@@ -72,7 +69,7 @@ def main():
             np.asarray(data.lb)[:k], np.asarray(data.ub)[:k],
             eps_abs=1e-9, eps_rel=1e-9)
         err = np.max(np.abs(np.asarray(sol.x)[:k] - out["x"]))
-        print(f"max |x_tpu - x_native_cpu| over {k} elements: {err:.3e}")
+        print(f"max |x_jax - x_native_cpu| over {k} elements: {err:.3e}")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Mirror of the reference numpy demo (demo/demo_solve_box_qp.py, which solves
 one QP with the scipy-based ADMM and eyeballs it against cvxpy,
 demo/demo_solve_box_qp.py:62-73).  cvxpy is not in this environment, so the
-trusted cross-checks are (a) the batched TPU/JAX solver and (b) the native
+trusted cross-checks are (a) the batched JAX solver and (b) the native
 C++ CPU oracle when built.
 
 Run:  python demo/demo_solve_box_qp_numpy.py

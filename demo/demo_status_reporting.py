@@ -56,7 +56,8 @@ def main():
     # Mid-solve residual trajectory WITHOUT host callbacks: the reference
     # prints residuals from inside the loop (solve_box_qp_admm_torch.py:
     # 289-294), which needs the host; config.residual_trace carries a ring
-    # buffer through the while loop instead, so it works on remote TPU.
+    # buffer through the while loop instead and returns it with the
+    # solution.
     sol_t = solve_box_qp(Q, p, A, b, lb, ub,
                          config=BoxQPConfig(eps_abs=1e-6, eps_rel=1e-6,
                                             max_iters=20000,

@@ -21,14 +21,10 @@ import jax
 import jax.numpy as jnp
 
 from lqp_py_tpu import BoxQPConfig, boxqp, solve_box_qp
+from lqp_py_tpu.utils.compile_cache import enable_compile_cache
 from lqp_py_tpu.utils.generators import generate_hard_qp
+from lqp_py_tpu.utils.profiling import force as _force
 from plotting import plot_profile_bars
-
-
-def _force(tree):
-    jax.block_until_ready(tree)
-    leaf = jax.tree_util.tree_leaves(tree)[0]
-    _ = float(jnp.ravel(jnp.asarray(leaf))[0])
 
 
 def time_fn(f, *args, n_sims):
@@ -143,6 +139,7 @@ def main():
     ap.add_argument("--tol", type=float, default=1e-5)
     ap.add_argument("--n-sims", type=int, default=5)
     args = ap.parse_args()
+    enable_compile_cache()
 
     results = {}
     for n_x in args.sizes:

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from lqp_py_tpu import BoxQPConfig, GenQPConfig, OptNetConfig, boxqp
 from lqp_py_tpu.models.genqp import qp_gen
 from lqp_py_tpu.models.optnet import qp_optnet
+from lqp_py_tpu.utils.compile_cache import enable_compile_cache
 from lqp_py_tpu.utils.generators import create_qp_data
 from lqp_py_tpu.utils.profiling import force as _force
 
@@ -108,6 +109,7 @@ def main():
     ap.add_argument("--n-batch", type=int, default=128)
     ap.add_argument("--n-sims", type=int, default=10)
     args = ap.parse_args()
+    enable_compile_cache()
 
     res = run_tol_sweep(args.n_x, args.n_batch, args.n_sims)
     payload = {

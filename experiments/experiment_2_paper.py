@@ -62,7 +62,7 @@ def render(results_path="exp2_results.json"):
     # deterministic trajectory (fused == per-step is asserted by
     # experiment_2), so the band is the fused-vs-loop deviation bound.
     fig, ax = plt.subplots(figsize=(4.2, 3.2))
-    ax.plot(epochs, losses, "C0", label="ADMM layer (TPU)")
+    ax.plot(epochs, losses, "C0", label="ADMM layer (JAX)")
     dev = float(res.get("fused_vs_loop_loss_dev", 0.0))
     ax.fill_between(epochs, losses - 2 * dev, losses + 2 * dev,
                     color="C0", alpha=0.25,

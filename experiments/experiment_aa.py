@@ -6,7 +6,7 @@ sparse 'hard'), and both dtypes, recording iteration counts, convergence,
 and solution agreement with the plain run.  Iteration counts are
 device-independent (lock-step traced algorithm), so a CPU capture of this
 artifact is meaningful; wall-clock columns are whatever device the run
-sees (the TPU capture plan re-runs it on the real chip).
+sees (run it on the GPU for device times).
 
 Run:  python experiments/experiment_aa.py --sizes 50 100 250
 """
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from lqp_py_tpu import BoxQPConfig, GenQPConfig, solve_box_qp
 from lqp_py_tpu.models.genqp import solve_qp_gen
+from lqp_py_tpu.utils.compile_cache import enable_compile_cache
 from lqp_py_tpu.utils.generators import create_qp_data, generate_hard_qp
 from lqp_py_tpu.utils.profiling import force as _force
 
@@ -85,6 +86,7 @@ def main():
     ap.add_argument("--windows", type=int, nargs="*", default=[10, 20])
     ap.add_argument("--n-sims", type=int, default=5)
     args = ap.parse_args()
+    enable_compile_cache()
 
     results = {}
     for family in ("hard", "create"):

@@ -36,6 +36,7 @@ from lqp_py_tpu import BoxQPConfig, OptNetConfig
 from lqp_py_tpu.models.box_ip import solve_box_qp_ip
 from lqp_py_tpu.models.box_qp import solve_box_qp
 from lqp_py_tpu.models.optnet import solve_qp_optnet
+from lqp_py_tpu.utils.compile_cache import enable_compile_cache
 from lqp_py_tpu.utils.generators import create_qp_data
 
 
@@ -155,6 +156,7 @@ def main():
     ap.add_argument("--n-oracle", type=int, default=8,
                     help="batch elements solved by the f64 numpy oracle")
     args = ap.parse_args()
+    enable_compile_cache()
 
     cells = []
     for n_x in args.sizes:

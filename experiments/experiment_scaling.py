@@ -1,7 +1,7 @@
 """Batch-sharded scaling: weak-scaling correctness and throughput of the
 GSPMD and shard_map paths over a device mesh.
 
-On real multi-chip hardware this measures ICI scaling (the only collective
+On several GPUs this measures scaling over NVLink (the only collective
 is the convergence all-reduce).  In this environment it runs on the
 8-virtual-device CPU mesh (set XLA_FLAGS=--xla_force_host_platform_
 device_count=8) to validate that sharded execution produces the same
@@ -38,8 +38,10 @@ def main():
     from lqp_py_tpu.parallel.mesh import make_mesh
     from lqp_py_tpu.parallel.sharded import (solve_box_qp_sharded,
                                              solve_box_qp_shard_map)
+    from lqp_py_tpu.utils.compile_cache import enable_compile_cache
     from lqp_py_tpu.utils.generators import create_qp_data
 
+    enable_compile_cache()
     n_dev = len(jax.devices())
     cfg = BoxQPConfig(eps_abs=args.tol, eps_rel=args.tol)
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from lqp_py_tpu import BoxQPConfig, solve_box_qp
 from lqp_py_tpu.models.box_qp import prepare_box_qp, solve_box_qp_prepared
+from lqp_py_tpu.utils.compile_cache import enable_compile_cache
 from lqp_py_tpu.utils.generators import create_qp_data
 
 
@@ -37,6 +38,7 @@ def main():
     ap.add_argument("--drift", type=float, default=0.02)
     ap.add_argument("--tol", type=float, default=1e-5)
     args = ap.parse_args()
+    enable_compile_cache()
 
     data = create_qp_data(args.n_x, args.n_batch, seed=0, dtype=jnp.float32)
     Q, p0, A, b, lb, ub = data
@@ -44,8 +46,8 @@ def main():
 
     # All problem arrays (and the prepared state, a pytree) are jit
     # ARGUMENTS, not closure captures: closing over the B x n x n factors
-    # would bake them into the HLO as constants and blow the remote-compile
-    # payload limit at larger sizes.
+    # would bake them into the HLO as constants (gigabytes at larger
+    # sizes).
     @jax.jit
     def cold(Q, p, A, b, lb, ub):
         s = solve_box_qp(Q, p, A, b, lb, ub, cfg)
@@ -88,7 +90,7 @@ def main():
         prev = s_w
 
     # --- fused rollout: ALL steps inside one jit (lax.scan over drifting
-    # p with warm starts).  This is the TPU-native serving shape — one
+    # p with warm starts).  This is the batched serving shape — one
     # dispatch for the whole control horizon — which an eager per-solve
     # design cannot express.
     @jax.jit

@@ -1,8 +1,8 @@
-"""lqp_py_tpu — a TPU-native differentiable quadratic-programming framework.
+"""lqp_py_tpu — a batched differentiable quadratic-programming framework.
 
 Capabilities mirror ipo-lab/lqp_py (batched box-constrained QP layers with
 implicit/unrolled differentiation, plus interior-point and operator-splitting
-general-QP solvers), re-designed for JAX/XLA/Pallas on TPU: on-device
+general-QP solvers), re-designed for JAX/XLA/Pallas on an NVIDIA GPU: on-device
 ``lax.while_loop`` solvers, Schur-reduced Cholesky KKT solves, ``custom_vjp``
 implicit gradients, and batch-sharded multi-chip execution via
 ``jax.sharding``.

@@ -5,7 +5,7 @@ Component parity with the reference's non-batched scalar solver
 class, Jacobi scaling with the quantile-blended beta, scalar auto/adaptive
 rho with refactorization, and OSQP-style stopping on unscaled residuals —
 used as a readable, dependency-free oracle that covers the tuned paths of
-the TPU solver (the fast path is the C++ core in native/lqp_native.cpp).
+the batched JAX solver (the fast path is the C++ core in native/lqp_native.cpp).
 """
 
 from __future__ import annotations

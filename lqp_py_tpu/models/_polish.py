@@ -6,7 +6,7 @@ penalty active-set scheme as the general IP's polish, models/optnet.py),
 then iteratively refine through the factored operator.  The penalty form
 keeps the per-element systems SPD and uniformly shaped, so one batched
 ``spd_inverse_fast`` factorization serves every batch element even though
-their active sets differ — the TPU-native alternative to OSQP's
+their active sets differ — the batched alternative to OSQP's
 per-problem reduced-KKT refactorization (osqp.org 'solution polishing';
 no reference counterpart — /root/reference/lqp_py has no polish).
 

@@ -1,4 +1,4 @@
-"""Batched box-QP ADMM solver — TPU-native forward pass.
+"""Batched box-QP ADMM solver — forward pass.
 
 Solves (batched over a leading axis, all shapes static):
 
@@ -10,7 +10,8 @@ Functional parity with the reference forward solver
 (``torch_solve_box_qp``, solve_box_qp_admm_torch.py:108-333): same ADMM
 iteration, Jacobi scaling with quantile-blended beta, OSQP-style stopping
 test on unscaled residuals, per-element adaptive rho with refactorization,
-and dual extraction.  The *mechanics* are TPU-first instead of a port:
+and dual extraction.  The *mechanics* are accelerator-first instead of a
+port:
 
 - The whole solve is one ``lax.while_loop`` compiled on device.  The
   reference's host-side Python loop, ``.item()`` convergence sync and
@@ -18,9 +19,9 @@ and dual extraction.  The *mechanics* are TPU-first instead of a port:
   control flow — zero host<->device round trips.
 - The per-iteration KKT solve is a single batched GEMV against a
   precomputed reduced-KKT inverse (see ops/linalg.py) instead of an
-  ``lu_solve``: dense, static, MXU-friendly work.
-- Adaptive-rho refactorization happens inside ``lax.cond`` so its cost is
-  only paid on the (rare) iterations that actually update rho.
+  ``lu_solve``: dense, static, batched work.
+- Adaptive-rho refactorization runs in an outer loop body that is only
+  entered on the (rare) checks that actually update rho.
 - Early exit is a global ``jnp.all`` in the while condition — the same
   lock-step semantics as the reference's batchwide stopping rule
   (solve_box_qp_admm_torch.py:309-312), without the host sync.
@@ -39,6 +40,7 @@ from lqp_py_tpu.ops import linalg as lin
 from lqp_py_tpu.ops import scaling as sca
 from lqp_py_tpu.ops.precision import solver_precision
 from lqp_py_tpu.types import BoxQPSolution, as_vector
+from lqp_py_tpu.utils import pytree
 
 _ZERO_CLAMP = 1e-16
 
@@ -81,7 +83,7 @@ def _prep(Q, p, A, b, lb, ub, config, pad: int = 0):
     """Canonicalize shapes, compute the unscaled p-norm, scale, pick rho.
 
     With ``pad > 0`` the returned ``sp.Q`` (and ``sp.A``'s columns) come
-    back already lane-padded — the scale and the pad fuse into one HBM
+    back already padded — the scale and the pad fuse into one HBM
     pass (ops/scaling.py ``_scale_pad_q``), saving a full (B, n, n)
     round-trip vs scaling then padding."""
     # Q is semantically symmetric; symmetrize defensively (opt-out knob) so
@@ -136,7 +138,7 @@ def _prep(Q, p, A, b, lb, ub, config, pad: int = 0):
 
 def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
     """Fused variant of ``_prep`` for the direct solve path: emits the
-    lane-padded factorization operand ``H = D Q D + rho I`` in a single
+    padded factorization operand ``H = D Q D + rho I`` in a single
     build pass (ops/scaling.py ``scale_problem_h``) instead of
     materializing the scaled Q and shifting it later — two fewer
     (B, n, n) HBM round trips per solve.  The auto-rho uses the vector
@@ -195,20 +197,16 @@ def solve_box_qp(Q, p, A=None, b=None, lb=None, ub=None,
     """
     # Scale, pad AND rho-shift in one fused pass: _prep_h returns the
     # factorization operand H (and A's columns) already at the
-    # lane-aligned size _solve_scaled factorizes at.
+    # aligned size _solve_scaled factorizes at.
     nv = as_vector(p, "p").shape[-1]
-    n_pad, _ = _padded_n(config, nv, _mode(config))
     sph, p_norm, rho0, (B, n, dtype) = _prep_h(Q, p, A, b, lb, ub, config,
-                                               pad=n_pad - nv)
-    return _solve_scaled(config, None, sph.p, sph.A, sph.b, sph.lb, sph.ub,
-                         sph.D, sph.E, p_norm, rho0, None, warm_start,
-                         H0=sph.H)
+                                               pad=_padded_n(nv) - nv)
+    return _solve_scaled(config, sph.H, sph.p, sph.A, sph.b, sph.lb,
+                         sph.ub, sph.D, sph.E, p_norm, rho0, None,
+                         warm_start)
 
 
-from flax import struct as _struct
-
-
-@_struct.dataclass
+@pytree.dataclass
 class BoxQPPrepared:
     """p-independent state of a box-QP family: scaled data + KKT factors.
 
@@ -218,7 +216,7 @@ class BoxQPPrepared:
     (the dominant prep cost) on every call — combined with ``warm_start``
     the per-solve work collapses to the ADMM iterations themselves.
 
-    ``H`` is the lane-padded factorization operand ``D Q D + rho0 I``
+    ``H`` is the padded factorization operand ``D Q D + rho0 I``
     (the same fused-build object the direct solve path uses, so prepared
     and direct solves share one computation graph bit-for-bit); the
     scaled Q itself is not stored — consumers that need it (polish)
@@ -238,7 +236,7 @@ class BoxQPPrepared:
     E: Optional[jax.Array]
     rho0: jax.Array
     factors: lin.KKTFactors
-    mode: str = _struct.field(pytree_node=False, default="inverse")
+    mode: str = pytree.static_field(default="inverse")
 
 
 def _mode(config) -> str:
@@ -248,63 +246,14 @@ def _mode(config) -> str:
     return mode
 
 
-#: Lane alignment of the variable axis (XLA tiles f32 at (8, 128); the
-#: pallas fused step needs 256).
+#: Alignment of the variable axis: the factorization's Schur recursion
+#: works on multiples of 128 (ops/linalg.py _LEAF), so the solver pads
+#: once, at build time, and every hot-loop operand keeps that size.
 _ALIGN = 128
 
 
-def _padded_n(config, n: int, mode: str):
-    use_pallas = bool(config.use_pallas_step) and mode == "inverse"
-    align = 256 if use_pallas else _ALIGN
-    return -(-n // align) * align, use_pallas
-
-
-def _pad_identity(M, pad):
-    """Pad (B, n, n) to (B, n+pad, n+pad) with an identity block (valid for
-    SPD matrices and their lower Cholesky factors alike)."""
-    n = M.shape[-1]
-    out = jnp.pad(M, ((0, 0), (0, pad), (0, pad)))
-    idx = jnp.arange(n, n + pad)
-    return out.at[:, idx, idx].set(jnp.ones((), M.dtype))
-
-
-def _pad_factors(f: "lin.KKTFactors", pad):
-    """Resize cached KKT factors to the aligned size.
-
-    pad > 0: pad (P/W with zeros — the padded coordinates' r is identically
-    0 — L with an identity block).  pad < 0: slice — valid because the
-    factors were built from an identity-padded Q with zero-padded A
-    columns, so the padded block is exactly decoupled: the KKT matrix is
-    block-diagonal there and P (its inverse), L (its Cholesky), and W all
-    restrict exactly to the leading block.  This happens when
-    prepare_box_qp aligned to a larger tile than the solve-time config
-    (e.g. prepared with use_pallas_step=True at 256, solved without at
-    128)."""
-    if pad < 0:
-        m = pad  # negative: target size offset from the end
-
-        def _cut(a):
-            return a[..., :a.shape[-2] + m, :a.shape[-1] + m]
-
-        return f.replace(
-            P=None if f.P is None else _cut(f.P),
-            Hinv=None if f.Hinv is None else _cut(f.Hinv),
-            L=None if f.L is None else _cut(f.L),
-            W=None if f.W is None else f.W[..., :f.W.shape[-2] + m, :],
-            WS=None if f.WS is None else f.WS[..., :f.WS.shape[-2] + m, :])
-
-    def _pad_nn(a):
-        return jnp.pad(a, ((0, 0), (0, pad), (0, pad)))
-
-    def _pad_nm(a):
-        return jnp.pad(a, ((0, 0), (0, pad), (0, 0)))
-
-    return f.replace(
-        P=None if f.P is None else _pad_nn(f.P),
-        Hinv=None if f.Hinv is None else _pad_nn(f.Hinv),
-        L=None if f.L is None else _pad_identity(f.L, pad),
-        W=None if f.W is None else _pad_nm(f.W),
-        WS=None if f.WS is None else _pad_nm(f.WS))
+def _padded_n(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
 
 
 @solver_precision
@@ -319,11 +268,10 @@ def prepare_box_qp(Q, A=None, b=None, lb=None, ub=None,
     # bit-for-bit and the cached operand is consumed without any
     # per-solve pad copy.
     n = p0.shape[-1]
-    n_pad, use_pallas = _padded_n(config, n, mode)
     sph, _p_norm, rho0, (_B, n, _dtype) = _prep_h(Q, p0, A, b, lb, ub,
-                                                  config, pad=n_pad - n)
+                                                  config,
+                                                  pad=_padded_n(n) - n)
     factors = lin.factorize_kkt(sph.H, None, sph.A, mode=mode,
-                                materialize_p=use_pallas,
                                 equilibrate=not config.scale)
     return BoxQPPrepared(H=sph.H, As=sph.A, bs=sph.b, lbs=sph.lb,
                          ubs=sph.ub, D=sph.D, E=sph.E, rho0=rho0,
@@ -343,22 +291,19 @@ def solve_box_qp_prepared(prep: BoxQPPrepared, p,
     pv = as_vector(p, "p").astype(prep.H.dtype)
     p_norm = _inf_norm(pv)
     ps = prep.D * pv
-    return _solve_scaled(config, None, ps, prep.As, prep.bs,
+    return _solve_scaled(config, prep.H, ps, prep.As, prep.bs,
                          prep.lbs, prep.ubs, prep.D, prep.E,
-                         p_norm, prep.rho0, prep.factors, warm_start,
-                         H0=prep.H)
+                         p_norm, prep.rho0, prep.factors, warm_start)
 
 
-def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
-                  p_norm, rho0, factors_in, warm_start,
-                  H0=None) -> BoxQPSolution:
+def _solve_scaled(config, H0, ps, As, bs, lbs, ubs, D, E,
+                  p_norm, rho0, factors_in, warm_start) -> BoxQPSolution:
     """The ADMM loop on an already-scaled, already-factorized problem.
 
-    ``H0``: optional pre-built, lane-padded factorization operand
-    ``D Q D + rho0 I`` from the fused prep path (``_prep_h``).  When given,
-    ``Qs`` may be None — the scaled Q is reconstructed from H0 only where
-    actually needed (the polish path), and adaptive-rho refactorization
-    shifts H0's leading diagonal instead of rebuilding from Qs."""
+    ``H0``: the pre-built, padded factorization operand ``D Q D + rho0 I``
+    from the fused prep path (``_prep_h``).  The scaled Q is reconstructed
+    from it only where actually needed (the polish path), and adaptive-rho
+    refactorization shifts H0's leading diagonal."""
     B, n = ps.shape
     dtype = ps.dtype
     cs = config.resolved_check_interval(n)
@@ -367,17 +312,14 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
 
     mode = _mode(config)
 
-    # Lane alignment for ALL paths: the factorization runs at the padded
-    # size directly (identity-padded Q, zero-padded A columns), so every
-    # hot-loop operand is statically tile-aligned and no pad/slice copies
-    # surround the factorization — in particular the adaptive-rho
-    # refactorization inside the loop produces an already-padded P.
+    # The factorization runs at the padded size directly (identity-padded
+    # Q, zero-padded A columns, both built padded by _prep_h), so no
+    # pad/slice copies surround it — in particular the adaptive-rho
+    # refactorization inside the loop produces already-padded factors.
     # Padded coordinates are inert: p = 0, bounds +/-inf, zero initial
     # state => r_pad = 0 and x, z, u stay exactly 0 there by induction.
-    # ``Qs``/``As`` may arrive already padded (solve_box_qp fuses the
-    # scale and the pad into one pass; prepare_box_qp caches padded
-    # operands) — only the (B, n) vectors are padded here (cheap).
-    n_pad, use_pallas = _padded_n(config, n, mode)
+    # Only the (B, n) vectors are padded here (cheap).
+    n_pad = H0.shape[-1]
     pad = n_pad - n
     if pad:
         ps_p = jnp.pad(ps, ((0, 0), (0, pad)))
@@ -387,42 +329,6 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
                         constant_values=jnp.inf)
     else:
         ps_p, lbs_p, ubs_p = ps, lbs, ubs
-    if H0 is not None:
-        built_h = H0.shape[-1]
-        if built_h < n_pad:
-            # Prepared at a smaller alignment than the solve config wants
-            # (e.g. plain 128 -> pallas 256): extend the decoupled
-            # identity pad.
-            H0 = _pad_identity(H0, n_pad - built_h)
-            As = None if As is None else jnp.pad(
-                As, ((0, 0), (0, 0), (0, n_pad - built_h)))
-        elif built_h > n_pad:
-            # Prepared at a larger alignment: the identity-padded block
-            # decouples exactly — slice.
-            H0 = H0[:, :n_pad, :n_pad]
-            As = None if As is None else As[:, :, :n_pad]
-        Qs_p = None
-        As_p = As                     # scale_problem_h pads A's columns
-        # Scaled Q reconstructed lazily below, only for the polish path.
-        Qs_u = None
-    else:
-        built_q = Qs.shape[-1]
-        if built_q == n_pad:
-            Qs_p, As_p = Qs, As
-        elif built_q == n:
-            Qs_p = _pad_identity(Qs, pad) if pad else Qs
-            As_p = None if As is None else (
-                jnp.pad(As, ((0, 0), (0, 0), (0, pad))) if pad else As)
-        else:
-            # Prepared at a different alignment (e.g. pallas 256 vs plain
-            # 128): the identity-padded block decouples exactly — slice.
-            assert built_q > n_pad, (built_q, n_pad)
-            Qs_p = Qs[:, :n_pad, :n_pad]
-            As_p = None if As is None else As[:, :, :n_pad]
-        # Unpadded views for the residual checks / certificates / polish
-        # (the padded block decouples exactly; XLA fuses the slice into the
-        # consuming n-sized ops).
-        Qs_u = Qs if Qs.shape[-1] == n else Qs[:, :n, :n]
     As_u = As if (As is None or As.shape[-1] == n) else As[:, :, :n]
 
     def _q_of(f):
@@ -434,63 +340,31 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
             q = jnp.zeros((B, n_pad), dtype)
         return q
 
-    if H0 is not None:
-        # Refactorization shifts H0's leading-n diagonal in place of a
-        # rebuild from Qs (which is not materialized on this path).  The
-        # pad block's identity diagonal is deliberately excluded: a
-        # downward rho move would otherwise push the decoupled pad pivots
-        # toward zero or negative.
-        idx_pad = jnp.arange(n_pad)
-        eye_upd = ((idx_pad[:, None] == idx_pad[None, :])
-                   & (idx_pad[:, None] < n)).astype(dtype)
+    # Refactorization shifts H0's leading-n diagonal.  The pad block's
+    # identity diagonal is deliberately excluded: a downward rho move
+    # would otherwise push the decoupled pad pivots toward zero or
+    # negative.
+    idx_pad = jnp.arange(n_pad)
+    eye_upd = ((idx_pad[:, None] == idx_pad[None, :])
+               & (idx_pad[:, None] < n)).astype(dtype)
 
-        def factorize(rho):
-            Hr = H0 + (rho - rho0)[:, None, None] * eye_upd
-            f = lin.factorize_kkt(Hr, None, As_p, mode=mode,
-                                  materialize_p=use_pallas,
-                                  equilibrate=not config.scale)
-            return f, _q_of(f)
-    else:
-        def factorize(rho):
-            # equilibrate=False when the solver scaling already ran: Qs is
-            # Jacobi column-equilibrated, so the extra diag-rescale passes
-            # in spd_inverse_fast (4 full HBM sweeps of Q-sized arrays,
-            # ~5 ms at the flagship shape) buy no accuracy.
-            f = lin.factorize_kkt(Qs_p, rho, As_p, mode=mode,
-                                  materialize_p=use_pallas,
-                                  equilibrate=not config.scale)
-            return f, _q_of(f)
+    def factorize(rho):
+        # equilibrate=False when the solver scaling already ran: H0 is
+        # Jacobi-equilibrated, so the extra diag-rescale passes in
+        # spd_inverse_fast buy no accuracy.
+        Hr = H0 + (rho - rho0)[:, None, None] * eye_upd
+        f = lin.factorize_kkt(Hr, None, As, mode=mode,
+                              equilibrate=not config.scale)
+        return f, _q_of(f)
 
     if factors_in is None:
-        if H0 is not None:
-            # Initial factorization consumes H0 directly (no zero-shift
-            # elementwise pass).
-            factors0 = lin.factorize_kkt(H0, None, As_p, mode=mode,
-                                         materialize_p=use_pallas,
-                                         equilibrate=not config.scale)
-            q0 = _q_of(factors0)
-        else:
-            factors0, q0 = factorize(rho0)
+        # Initial factorization consumes H0 directly (no zero-shift
+        # elementwise pass).
+        factors0 = lin.factorize_kkt(H0, None, As, mode=mode,
+                                     equilibrate=not config.scale)
     else:
-        # Cached factors from prepare_box_qp; pad once if they were built
-        # at the unpadded size (older prepare or changed config).
-        f = factors_in
-        if use_pallas and f.P is None:
-            # Prepared without a materialized P but the solve-time config
-            # wants the fused kernel's dense operator: build P from the
-            # cached pieces (one GEMM, no refactorization).
-            if f.W is not None:
-                f = f.replace(P=f.Hinv - jnp.einsum(
-                    "...im,...jm->...ij", f.WS, f.W,
-                    preferred_element_type=dtype))
-            else:
-                f = f.replace(P=f.Hinv)
-        dense0 = f.P if f.P is not None else (
-            f.Hinv if f.Hinv is not None else f.L)
-        built_n = dense0.shape[-1]
-        if built_n != n_pad:
-            f = _pad_factors(f, n_pad - built_n)
-        factors0, q0 = f, _q_of(f)
+        factors0 = factors_in            # cached by prepare_box_qp
+    q0 = _q_of(factors0)
 
     # Over-relaxation: with no finite bounds anywhere, the projection is the
     # identity and rho is forced to 0 — the plain iteration converges in one
@@ -504,9 +378,6 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
 
     def x_update(st_factors, q, r):
         if mode == "inverse":
-            if st_factors.P is not None:
-                return jnp.einsum("bij,bj->bi", st_factors.P, r,
-                                  preferred_element_type=dtype) + q
             # Implicit P: one dense GEMV + two rank-n_eq corrections
             # (x = Hinv r - WS (W^T r) + q) — same HBM traffic as a
             # materialized P without ever building it.
@@ -576,30 +447,15 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
         n_inner = jnp.where(st.it == 0, 1, cs)
         n_inner = jnp.minimum(n_inner, max_iters - st.it)
 
-        if use_pallas:
-            # The fused kernel bakes alpha in statically; the no-finite-bound
-            # alpha->1 collapse does not apply inside it (documented: the
-            # pallas path assumes a genuinely box-constrained problem).
-            from lqp_py_tpu.ops.pallas.admm_step import fused_admm_step
-
-            def inner(_, s):
-                x, z, u, z_prev, r = s
-                z_prev = z
-                xn, zn, un, _rn = fused_admm_step(
-                    st.factors.P, r, x, z, u, ps_p, st.q, lbs_p, ubs_p,
-                    st.rho, st.is_optimal, alpha=float(config.alpha))
-                rn = -ps_p + st.rho[..., None] * (zn - un)
-                return (xn, zn, un, z_prev, rn)
-        else:
-            def inner(_, s):
-                x, z, u, z_prev, _r = s
-                r = -ps_p + st.rho[..., None] * (z - u)
-                x = x_update(st.factors, st.q, r)
-                z_prev = z
-                xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
-                z = jnp.clip(xh + u, lbs_p, ubs_p)
-                u = u + (xh - z)
-                return (x, z, u, z_prev, r)
+        def inner(_, s):
+            x, z, u, z_prev, _r = s
+            r = -ps_p + st.rho[..., None] * (z - u)
+            x = x_update(st.factors, st.q, r)
+            z_prev = z
+            xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
+            z = jnp.clip(xh + u, lbs_p, ubs_p)
+            u = u + (xh - z)
+            return (x, z, u, z_prev, r)
 
         def inner_aa(i, s):
             """ADMM iteration + safeguarded Anderson step on the
@@ -631,19 +487,6 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
             x, z, u, z_prev, last_r = jax.lax.fori_loop(
                 0, n_inner, inner, (st.x, st.z, st.u, st.z, r0))
             aa = st.aa
-        if use_pallas:
-            # last_r is the r for the *next* iteration there; the r that
-            # produced the current x is recomputable from (z_prev, u_prev),
-            # but u_prev is gone — reconstruct it by inverting the (relaxed)
-            # dual update u = u_prev + (alpha x + (1-alpha) z_prev - z):
-            a = float(config.alpha)
-            u_prev = u - (a * x + (1.0 - a) * z_prev - z)
-            last_r = -ps_p + st.rho[..., None] * (z_prev - u_prev)
-            # Frozen (converged) elements never executed the dual update the
-            # reconstruction inverts — keep the r that actually produced
-            # their x instead of a value perturbed by O(rho*alpha*tol).
-            last_r = jnp.where(st.is_optimal[:, None], st.last_r, last_r)
-
         if pad:
             xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
         else:
@@ -759,7 +602,7 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
             # exit so the refactorization runs unconditionally in the
             # outer loop body — a lax.cond here would copy the full
             # (B, n, n) factors through its no-update branch at every
-            # check (~2.6 ms/check at the flagship shape, measured).
+            # check.
             ratio = _rho_ratio(st)
             tol_r = jnp.asarray(config.adaptive_rho_tol, dtype)
             el_outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
@@ -791,7 +634,7 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
         # (solve_box_qp_admm_torch.py:251): a rho change shifts the FULL
         # diagonal (rank-n perturbation), so no Woodbury/rank-k update of
         # the factors exists — each genuine update pays one sweep/Schur
-        # refactorization (~25 ms at n=1000).  Two-level loop: the inner
+        # refactorization.  Two-level loop: the inner
         # while exits when any element is pending, the outer body
         # refactorizes UNCONDITIONALLY (it only runs when inner exited
         # pending) and re-enters the inner loop — zero conditional-copy
@@ -850,11 +693,10 @@ def _solve_scaled(config, Qs, ps, As, bs, lbs, ubs, D, E,
         # (u is an affine combination), so the AA path detects off the
         # clipped z instead.
         from lqp_py_tpu.models._polish import box_penalty_polish
-        if Qs_u is None:
-            # Fused-H prep path: reconstruct the scaled Q only here (the
-            # one consumer that needs it), one elementwise pass.
-            Qs_u = (H0[:, :n, :n]
-                    - rho0[:, None, None] * jnp.eye(n, dtype=dtype))
+        # Reconstruct the scaled Q only here (the one consumer that needs
+        # it), one elementwise pass.
+        Qs_u = (H0[:, :n, :n]
+                - rho0[:, None, None] * jnp.eye(n, dtype=dtype))
         # Proximity at tolerance scale (the scaled problem is equilibrated,
         # so slacks are O(1)).
         prox = 10 * jnp.asarray(config.eps_abs + config.eps_rel, dtype)
@@ -997,7 +839,7 @@ def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
     rho_sg = jax.lax.stop_gradient(rho0)
     # stop_gradient BEFORE factorizing: the cached factors receive zero
     # cotangent by design (kkt_solve_cached), and tangents must never enter
-    # the factorization itself — its pallas sweep kernel has no JVP rule.
+    # the factorization itself — its Pallas sweep kernel has no JVP rule.
     factors = lin.factorize_kkt(
         jax.lax.stop_gradient(Qs), rho_sg,
         None if As is None else jax.lax.stop_gradient(As),
@@ -1023,7 +865,7 @@ def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
 
         # Inner block as a differentiable lax.scan (NOT a python loop: at
         # n=1000 an inlined 10-iteration body makes the serialized HLO
-        # large enough to matter for compile time / remote-compile caps).
+        # large enough to matter for compile time).
         def inner(carry, _):
             x, z, u, z_last = carry
             xn, zn, un = one_iter(x, z, u)

@@ -33,9 +33,9 @@ def reduced_kkt_solve(H, A, r, reg, equilibrate: bool = True,
                       precision: str = "highest"):
     """Solve ``[[H, A^T], [A, 0]] [dv; dnu] = [r; 0]`` for SPD H through
     the sweep/Schur solve-only fast path (ops/linalg.py spd_solve_fast):
-    on TPU this avoids both the lax Cholesky's sequential column recurrence
-    AND the cost of materializing the full inverse for a single right-hand
-    side.  ``A`` may be None (returns dnu=None).
+    it avoids both the lax Cholesky's sequential column recurrence AND the
+    cost of materializing the full inverse for a single right-hand side.
+    ``A`` may be None (returns dnu=None).
 
     ``equilibrate=False``: the caller pre-scaled the system to unit
     diagonal (change of variables dv = D w with As = A D, rs = D r); the
@@ -87,8 +87,8 @@ def box_qp_grad_fixed_point(dl_dz, x, u, lams, nus, Q, A, lb, ub, rho,
         [[dpi Q dpi + diag(rho (1-dpi)), dpi A^T], [A dpi, 0]]
 
     which is SPD-quasi-definite and solved here through the Schur-reduced
-    Cholesky path (ops/linalg.py) — ~3x cheaper than LU on TPU and the
-    single hot spot of the backward pass.
+    fast path (ops/linalg.py ``spd_solve_fast``) — the single hot spot of
+    the backward pass.
 
     Returns (dQ, dp, dA, db, dlb, dub); dA/db are None when A is None.
     """
@@ -107,24 +107,21 @@ def box_qp_grad_fixed_point(dl_dz, x, u, lams, nus, Q, A, lb, ub, rho,
     # pass: with diag(H) = dpi^2 Q_ii + rho (1 - dpi) + reg and
     # s = diag(H)^-1/2, the scaled system (s_i s_j H_ij, unit diagonal)
     # needs no further diag-rescale inside spd_solve_fast — saving two
-    # full (B, n, n) HBM passes per backward (~3 ms at the flagship
-    # shape).  Change of variables: dv = s w, A_s = A diag(dpi s),
-    # r_s = s r; dnu is invariant.
+    # full (B, n, n) HBM passes per backward.  Change of variables:
+    # dv = s w, A_s = A diag(dpi s), r_s = s r; dnu is invariant.
     diag_q = jnp.diagonal(Q, axis1=-2, axis2=-1)
     diag_h = dpi * dpi * diag_q + rho_col * (1.0 - dpi) + reg
     s_eq = jax.lax.rsqrt(jnp.maximum(diag_h, 1e-30))     # (B, n)
     m_eq = dpi * s_eq
 
-    # Build the masked system DIRECTLY at the sweep-path lane alignment
-    # (TPU f32 only): padded coordinates get m = 0 and diag 1, i.e. an
+    # Build the masked system DIRECTLY at the size spd_solve_fast
+    # factorizes at: padded coordinates get m = 0 and diag 1, i.e. an
     # exactly decoupled identity block — the same inert-pad invariant as
-    # the forward solver — so spd_solve_fast sees n % 128 == 0 and skips
-    # its internal zero-fill + copy round trip (~1.5 ms at the flagship
-    # shape).  The pad fuses into the one elementwise build pass.
+    # the forward solver — so spd_solve_fast skips its internal zero-fill
+    # + copy round trip.  The pad fuses into the one elementwise build
+    # pass.
     from lqp_py_tpu.ops import linalg as _lin
-    pad = 0
-    if jax.default_backend() == "tpu" and dtype == jnp.float32:
-        pad = -(-n // _lin._LEAF) * _lin._LEAF - n
+    pad = _lin.schur_size(n, dtype) - n
     if pad:
         Qb = jnp.pad(Q, ((0, 0), (0, pad), (0, pad)))
         m_b = jnp.pad(m_eq, ((0, 0), (0, pad)))
@@ -138,10 +135,10 @@ def box_qp_grad_fixed_point(dl_dz, x, u, lams, nus, Q, A, lb, ub, rho,
           + eye_b * (1.0 - m_b * m_b * dq_b)[..., None, :])
     A_s = None if A_b is None else A_b * m_b[..., None, :]
 
-    # Default "high" (bf16x3) recursion GEMMs: the gradient solve's ~7e-6
-    # relative residual is far below what gradient consumers resolve, and
-    # the 3-pass MXU lowering halves the one-shot solve's FLOP bill
-    # (measured at the flagship shape; see spd_solve_fast docstring).
+    # Default "high" recursion GEMMs: on an H100 they run as TF32
+    # tensor-core gemms, and the flagship gradient agrees with an f64
+    # Cholesky reference to 5e-4 relative (chip_smoke.py; TF32's unit
+    # roundoff is 4.9e-4) — within what gradient consumers resolve.
     w, dnu_ = reduced_kkt_solve(Hs, A_s, rhs_b, reg,
                                 equilibrate=False,
                                 precision=solve_precision)

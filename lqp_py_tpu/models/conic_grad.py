@@ -33,7 +33,7 @@ import jax.numpy as jnp
 
 #: Trace-time budget for the materialized (B, N, N) self-dual system.
 #: 1 GiB keeps the conic mode usable through n~300 at B=128 while
-#: refusing the 4.6 GB flagship-shape operand (remote-compile killer).
+#: refusing the 4.6 GB flagship-shape operand.
 CONIC_BACKWARD_MAX_BYTES = 1 << 30
 
 

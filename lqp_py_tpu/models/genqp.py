@@ -4,7 +4,7 @@ Solves (batched):
 
     x* = argmin_x 0.5 x'Qx + p'x   s.t.  Ax = b,  Gx <= h
 
-This is the TPU-native replacement for the reference's SCS baseline
+This is the batched replacement for the reference's SCS baseline
 (scs_qp.py:52-118), which loops over the batch in Python and calls the SCS C
 solver one problem at a time — the exact anti-pattern a batched accelerator
 design avoids (SURVEY.md §2).  Here the whole batch is solved lock-step by an
@@ -33,7 +33,6 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct as _struct
 
 from lqp_py_tpu.config import GenQPConfig
 from lqp_py_tpu.models import box_qp_grad as bgrads
@@ -43,6 +42,7 @@ from lqp_py_tpu.ops import anderson
 from lqp_py_tpu.ops import linalg as lin
 from lqp_py_tpu.ops.precision import solver_precision
 from lqp_py_tpu.types import QPSolution, as_vector, like_layout
+from lqp_py_tpu.utils import pytree
 
 _ZERO_CLAMP = 1e-16
 
@@ -100,7 +100,7 @@ def _gen_prep_key(config: GenQPConfig):
             float(config.rho_max))
 
 
-@_struct.dataclass
+@pytree.dataclass
 class GenQPPrepared:
     """p-independent state of a general-inequality QP family: scaled data,
     auto-rho and the x-step KKT factorization.
@@ -124,7 +124,7 @@ class GenQPPrepared:
     factors: lin.KKTFactors
     #: static metadata: the prepare-config fields the factors depend on
     #: (see _gen_prep_key); solve_qp_gen_prepared raises on a mismatch.
-    key: tuple = _struct.field(pytree_node=False, default=())
+    key: tuple = pytree.static_field(default=())
 
 
 def _gen_prepare(Q, A, b, G, h, config) -> GenQPPrepared:
@@ -590,7 +590,7 @@ _genqp_implicit.defvjp(_genqp_fwd, _genqp_bwd)
 def qp_gen(Q, p, A=None, b=None, G=None, h=None,
            config: GenQPConfig = GenQPConfig()):
     """Differentiable general-QP layer (``SolveScsQP`` capability,
-    scs_qp.py:10-49, batched TPU-native).  Returns x in caller layout."""
+    scs_qp.py:10-49, batched).  Returns x in caller layout."""
     pv = as_vector(p, "p")
     bv = None if b is None else as_vector(b, "b")
     hv = as_vector(h, "h")

@@ -11,11 +11,11 @@ Schur complement S built from A Q^-1 A^T / G Q^-1 G^T), same affine +
 centering-corrector steps and 0.999 ratio-test step lengths, same
 KKT-based backward reusing the cached factors.
 
-TPU-first differences:
+Accelerator-first differences:
 - the iteration loop is an on-device ``lax.while_loop`` (the reference's
   Python loop + ``.item()`` stop is a host sync per iteration);
-- all fixed operators are materialized inverses (sweep/Schur fast path on
-  TPU) so every KKT solve is a handful of batched GEMVs instead of 4-6
+- all fixed operators are materialized inverses (the sweep/Schur fast
+  path, ops/linalg.py) so every KKT solve is a handful of batched GEMVs instead of 4-6
   sequential triangular substitutions — static-shaped, jit/vmap/shard-safe;
 - the residual/stopping block runs for *all* problems — the reference only
   checks convergence when equality constraints exist (bug: the whole IP
@@ -61,10 +61,10 @@ class IPFactors(NamedTuple):
     The reference keeps triangular factors and does 4-6 batched
     ``triangular_solve`` calls per solve (optnet_pre_factor_kkt /
     optnet_factor_kkt / torch_qp_int_solve_kkt, optnet.py:202-339).
-    Triangular substitution is a sequential recurrence the TPU executes
-    poorly, so here every fixed operator is a *materialized inverse*
-    (built via the sweep/Schur fast path on TPU, ops/linalg.py) and every
-    solve is a batched GEMV:
+    Triangular substitution is a sequential recurrence that leaves a wide
+    accelerator mostly idle, so here every fixed operator is a
+    *materialized inverse* (built via the sweep/Schur fast path,
+    ops/linalg.py) and every solve is a batched GEMV:
 
       S = [[S11, S12], [S21, S22(d)]],  S11 = A Q^-1 A^T,
       S21 = G Q^-1 A^T,  S22 = G Q^-1 G^T + diag(1/d)
@@ -195,7 +195,8 @@ def ip_solve_condensed(fc: CondensedFactors, d, G, A, rx, rs, rz, ry,
     matrix-free product ``Hmv``): the f32 materialized inverse bottoms out
     around 1e-3 dual infeasibility at n=1000 because H's spectrum spans
     the full d range, and refinement buys the missing digits for a few
-    GEMVs instead of an f64 factorization (which the TPU lacks natively).
+    GEMVs instead of an f64 factorization (far slower than f32 on the
+    card).
     """
     rhs1 = -rx + _mtv(G, rs - d * rz)
     t = _mv(fc.Hinv, rhs1)
@@ -350,7 +351,7 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
 
         # --- stopping test.  The reference uses ABSOLUTE L2 norms
         # ((||rz|| + ||rx||)/2 + mu < tol, optnet.py:116-125), which an
-        # f32 TPU cannot drive to 1e-5 at n=1000 (the un-normalized L2
+        # f32 solve cannot drive to 1e-5 at n=1000 (the un-normalized L2
         # residual floors near sqrt(n) * eps_f32 * scale).  Here the test
         # is the framework-wide OSQP-style per-element relative criterion
         # (eps_abs + eps_rel * norm of the constituent terms), plus a

@@ -99,10 +99,10 @@ def aa_step(state: AAState, v, gv, slot, hold, *,
     M = M + (reg_eff * tr / m
              + _TINY)[..., None, None] * jnp.eye(m, dtype=dtype)
     # M is SPD (regularized Gram): solve through the batch-major
-    # Gauss-Jordan inverse instead of jnp.linalg.solve — the batched LU
-    # custom call costs ~0.2-0.5 ms at (B, m, m) on TPU, which dwarfs the
-    # ~0.02 ms ADMM iteration at small n and was the reason acceleration
-    # lost wall-clock while winning iterations (round-3 verdict weak #4).
+    # Gauss-Jordan inverse instead of jnp.linalg.solve — a batched LU
+    # custom call per iteration costs more than a small-n ADMM iteration
+    # itself; the window m is far below the size where Gauss-Jordan
+    # stops beating a library factorization (PERF.md, Findings).
     from lqp_py_tpu.ops.linalg import _gj_inverse_small
     Minv = _gj_inverse_small(M)
     y = jnp.einsum("...ab,...b->...a", Minv, cinv,

@@ -1,28 +1,32 @@
 """Batched KKT factorization and solves — the L1 numerics of the framework.
 
-TPU-first design
-----------------
+Design
+------
 The reference factorizes the full ``(n_x+n_eq)^2`` KKT matrix with LU and does
 an ``lu_solve`` every ADMM iteration (solve_box_qp_admm_torch.py:206-267).
-Triangular substitution is sequential and maps poorly onto the MXU, and a
-per-iteration ``lu_solve`` with one right-hand side is latency-bound.
+Triangular substitution is sequential and leaves a wide accelerator mostly
+idle, and a per-iteration ``lu_solve`` with one right-hand side is
+latency-bound.
 
 Here the KKT operator
 
     M = [[H, A^T],
          [A, 0  ]],   H = Q + rho*I  (SPD)
 
-is reduced by a Schur complement on the Cholesky factor of ``H``:
+is reduced by a Schur complement on ``H``:
 
     S    = A H^-1 A^T            (n_eq x n_eq, tiny in practice)
     x    = P r + W S^-1 b,       P = H^-1 - W S^-1 W^T,  W = H^-1 A^T
     nu   = S^-1 (W^T r - b)
 
-With ``P`` materialized once (mode ``'inverse'``), every ADMM iteration is a
-single batched GEMV — dense, static-shaped, HBM-bandwidth-bound work that XLA
-tiles straight onto the MXU.  A ``'cholesky'`` mode keeps triangular factors
-and does two batched triangular solves per iteration instead (slightly better
-rounding behavior, slower on TPU); both are jit/vmap/shard_map compatible.
+With ``H^-1`` and the rank-``n_eq`` pieces computed once (mode
+``'inverse'``), every ADMM iteration is one batched GEMV plus rank-``n_eq``
+corrections — dense, static-shaped, HBM-bandwidth-bound work.  ``H^-1`` in
+f32 comes from a block Schur recursion over batched GEMMs with a Pallas
+sweep kernel at the 128x128 leaves (``spd_inverse_fast``).  A
+``'cholesky'`` mode keeps triangular factors and does two batched
+triangular solves per iteration instead (slightly better rounding
+behavior, slower); both are jit/vmap/shard_map compatible.
 
 Ref parity: replaces components #1's factorization path and #5 (TorchLU,
 lu_layer.py:5-58) — see ``kkt_solve_cached`` for the cached-factor
@@ -31,13 +35,16 @@ differentiable solve used by unrolled mode.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from jax.lax import linalg as lax_linalg
+
+from lqp_py_tpu.utils import pytree
 
 
 def _eye_like(Q):
@@ -64,7 +71,7 @@ def chol_inverse(L):
     """Explicit SPD inverse from a lower Cholesky factor.
 
     ``H^-1 = L^-T L^-1`` computed as a triangular solve against the identity
-    followed by one symmetric GEMM (MXU-friendly).
+    followed by one symmetric GEMM.
     """
     eye = jnp.broadcast_to(_eye_like(L), L.shape)
     Linv = lax_linalg.triangular_solve(L, eye, left_side=True, lower=True)
@@ -77,26 +84,20 @@ def spd_inverse(H):
 
 
 # ---------------------------------------------------------------------------
-# Fast SPD inverse: block Schur-complement recursion over MXU GEMMs with a
-# Pallas SWEEP kernel at the 128x128 leaves (ops/pallas/spd_inverse.py).
-#
-# XLA's cholesky + triangular_solve are dominated by sequential column
-# recurrences (~55 ms at B=128, n=1000 f32 on v5e); this path keeps all
-# O(n^3) work in batched GEMMs and runs the only irreducibly sequential part
-# (the leaf pivot loop) inside VMEM. ~3x faster end-to-end, and it is the
-# default 'inverse'-mode factorization on TPU.
+# Fast f32 SPD inverse and solve: block Schur-complement recursion over
+# batched GEMMs down to 128x128 diagonal leaves, each leaf inverted by the
+# Pallas/Triton sweep kernel.  On an H100 (400 W limit) at B=128, n=1000
+# this path beats both cholesky + triangular solve and the same recursion
+# with Cholesky leaves, per call and end to end (PERF.md, Findings).
 # ---------------------------------------------------------------------------
 
 _LEAF = 128
 
-# When True, spd_inverse_fast / spd_solve_fast use pure lax ops (Cholesky)
-# instead of the Pallas sweep leaves.  Needed under GSPMD tensor-parallel
-# sharding: a Mosaic custom call cannot be auto-partitioned by XLA's SPMD
-# pass, while the lax decomposition can (see parallel/tp.py).
+# When True, spd_inverse_fast / spd_solve_fast use Cholesky leaves instead
+# of the Pallas sweep leaves.  Needed under GSPMD tensor-parallel sharding:
+# a Pallas custom call cannot be auto-partitioned by XLA's SPMD pass, while
+# the lax decomposition can (see parallel/tp.py).
 _FORCE_LAX = False
-
-
-import contextlib
 
 
 @contextlib.contextmanager
@@ -112,24 +113,33 @@ def lax_linalg_only():
 
 
 def _sweep_leaf(H):
-    from lqp_py_tpu.ops.pallas.spd_inverse import sweep_spd_inverse
-    return sweep_spd_inverse(H)
+    from lqp_py_tpu.ops.pallas.spd_inverse import spd_inverse_leaf
+    return spd_inverse_leaf(H)
 
 
-#: Below this size the batch-major Gauss-Jordan beats the 128-padded sweep
-#: leaf: a (B, n, n) inverse at n <= 64 otherwise pads to a full 128x128
-#: sweep (12.8x the pivots at n=10).  64 keeps the (n, n, B) working set
-#: ~2 MB at B=128 (HBM-traffic parity with the sweep leaf).
-_GJ_MAX = 64
+def _leaf_for(H):
+    """Leaf of the Schur path for operand ``H``, or None for plain
+    Cholesky (every dtype but f32)."""
+    if _FORCE_LAX:
+        return spd_inverse
+    return _sweep_leaf if H.dtype == jnp.float32 else None
+
+
+#: At or below this size the f32 inverse is the batch-major Gauss-Jordan
+#: instead of one 128-padded sweep leaf.  Its n pivot steps are n
+#: dependent passes, so it only wins while n is tiny: on an H100 at B=128
+#: it beat Cholesky and the padded leaf at n=10 and lost to both from
+#: n=16 up; between 16 and 128 the leaf and Cholesky stay within their
+#: call-to-call spread (PERF.md, Findings).
+_GJ_MAX = 12
 
 
 def _gj_inverse_small(H):
     """Batch-major SPD inverse for small n: transpose to (n, n, B) so the
-    BATCH fills the TPU lane dimension, then run the same symmetric sweep
-    recurrence as the Pallas leaf (ops/pallas/spd_inverse.py) as plain XLA
-    ops — every pivot step is a fully-vectorized rank-1 pass whose inner
-    dimension is B, not n, so tiny matrices stop paying 128-lane padding.
-    SPD input => every pivot is positive, no pivoting needed."""
+    batch is the contiguous minor dimension, then run the symmetric sweep
+    recurrence of the Pallas leaf (ops/pallas/spd_inverse.py) as plain
+    XLA ops — every pivot step is one vectorized rank-1 pass over the
+    batch.  SPD input => every pivot is positive, no pivoting needed."""
     B, n, _ = H.shape
     dtype = H.dtype
     X = jnp.moveaxis(H, 0, -1)                       # (n, n, B)
@@ -150,13 +160,12 @@ def _gj_inverse_small(H):
     return -jnp.moveaxis(X, -1, 0)
 
 
-def _schur_inverse(H, ee, leaf=_sweep_leaf):
+def _schur_inverse(H, ee, leaf):
     """Recursive SPD inverse; H is (B, n, n) with n a multiple of _LEAF.
 
-    ``leaf`` inverts the <=128 diagonal blocks: the Pallas sweep kernel on
-    a single TPU chip, or plain Cholesky under ``lax_linalg_only`` (the
-    recursion itself is all einsums, which XLA's SPMD partitioner can
-    shard — a full-size ``lax.linalg.cholesky`` cannot be)."""
+    ``leaf`` inverts the <=128 diagonal blocks (the Pallas sweep kernel, or
+    plain Cholesky under ``lax_linalg_only``: the recursion itself is all
+    einsums, which XLA's SPMD partitioner can shard)."""
     n = H.shape[-1]
     if n <= _LEAF:
         return leaf(H)
@@ -175,94 +184,11 @@ def _schur_inverse(H, ee, leaf=_sweep_leaf):
     return jnp.concatenate([top, bot], axis=-2)
 
 
-def spd_inverse_fast(H, precision: str = "highest", equilibrate: bool = True):
-    """SPD inverse of (B, n, n).  On TPU: Schur recursion + Pallas sweep
-    leaves; elsewhere falls back to the Cholesky path.  ``n`` is padded to a
-    multiple of 128 with an identity block (exact: the inverse of
-    blockdiag(H, I) is blockdiag(H^-1, I)).
-
-    With ``equilibrate=True`` the input is Jacobi-equilibrated first
-    (``H' = D H D`` with ``D = diag(H)^-1/2``, so diag(H') = 1) and the
-    result unscaled as ``H^-1 = D H'^-1 D``.  Without this, matrices with
-    extreme diagonal dynamic range — e.g. the interior-point Schur
-    complement ``Rt + diag(1/d)`` whose diagonal spans ~1e8 near
-    convergence — lose all accuracy in a fixed-order f32 sweep (observed
-    as NaNs in the OptNet solver).  Callers whose operand is already
-    equilibrated (the box-QP solver Jacobi-scales Q before adding rho I)
-    pass ``equilibrate=False`` and skip four full (B, n, n) HBM passes
-    (~5 ms at the flagship shape)."""
-    if _FORCE_LAX:
-        # GSPMD tensor-parallel path: Schur recursion (partitionable
-        # einsums) with Cholesky leaves instead of the Mosaic sweep.
-        leaf = spd_inverse
-    elif jax.default_backend() != "tpu" or H.dtype != jnp.float32:
-        # Mosaic kernels have no f64 support; x64 runs (and CPU) take the
-        # lax Cholesky path.
-        return spd_inverse(H)
-    else:
-        leaf = _sweep_leaf
-    import functools
-    ee = functools.partial(jnp.einsum, precision=precision,
-                           preferred_element_type=H.dtype)
-    if equilibrate:
-        diag = jnp.diagonal(H, axis1=-2, axis2=-1)
-        d = jax.lax.rsqrt(jnp.maximum(diag, 1e-30))       # (B, n)
-        Hs = H * d[..., :, None] * d[..., None, :]
-    else:
-        d = None
-        Hs = H
-    n = H.shape[-1]
-    if n <= _GJ_MAX and leaf is _sweep_leaf:
-        # Small-n fast path: batch-major Gauss-Jordan, no 128-padding.
-        Hi = _gj_inverse_small(Hs)
-    else:
-        n_pad = -(-n // _LEAF) * _LEAF
-        pad = n_pad - n
-        if pad:
-            B = H.shape[0]
-            Hp = jnp.zeros((B, n_pad, n_pad), H.dtype)
-            Hp = Hp.at[:, :n, :n].set(Hs)
-            Hp = Hp.at[:, n:, n:].set(jnp.eye(pad, dtype=H.dtype))
-            Hi = _schur_inverse(Hp, ee, leaf)[:, :n, :n]
-        else:
-            Hi = _schur_inverse(Hs, ee, leaf)
-    if d is None:
-        return Hi
-    return Hi * d[..., :, None] * d[..., None, :]
-
-
-@struct.dataclass
-class KKTFactors:
-    """Factorization state of the reduced KKT operator.
-
-    'inverse' mode keeps the Schur reduction IMPLICIT by default:
-    ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces ``W = H^-1 A^T``,
-    ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1`` — the reduced inverse
-    ``P = Hinv - WS W^T`` is applied as one (B, n, n) GEMV plus two
-    rank-``n_eq`` corrections (n_eq is tiny in this workload), which is
-    the same per-iteration HBM traffic as a materialized ``P`` without
-    ever building the extra (B, n, n) operand (~2 ms + 0.5 GB at the
-    flagship shape).  ``P`` is materialized only on request
-    (``materialize_p=True`` — the Pallas fused step consumes a single
-    dense operator).
-
-    ``L`` is chol(H) in 'cholesky' mode, else None.
-    ``W``/``WS``/``Sinv`` are None when n_eq == 0.
-    """
-
-    P: Optional[jax.Array]
-    L: Optional[jax.Array]
-    W: Optional[jax.Array]
-    Sinv: Optional[jax.Array]
-    Hinv: Optional[jax.Array] = None
-    WS: Optional[jax.Array] = None
-
-
-def _schur_solve_rec(H, R, ee, leaf=_sweep_leaf):
+def _schur_solve_rec(H, R, ee, leaf):
     """``H^-1 R`` without materializing the full inverse: the two half-size
-    blocks are inverted (recursively, sweep leaves) but the cross-block
-    pieces are only ever applied to ``R`` — ~40% fewer FLOPs than
-    ``_schur_inverse`` when only a few right-hand sides are needed.
+    blocks are inverted (recursively) but the cross-block pieces are only
+    ever applied to ``R`` — ~40% fewer FLOPs than ``_schur_inverse`` when
+    only a few right-hand sides are needed.
 
     H: (B, n, n) SPD with n a multiple of _LEAF; R: (B, n, k).
     """
@@ -287,65 +213,127 @@ def _schur_solve_rec(H, R, ee, leaf=_sweep_leaf):
     return jnp.concatenate([X1, X2], axis=-2)
 
 
+def _pad_to_leaf(H):
+    """Identity-pad (B, n, n) to the next multiple of _LEAF (exact: the
+    inverse of blockdiag(H, I) is blockdiag(H^-1, I))."""
+    B, n, _ = H.shape
+    pad = -(-n // _LEAF) * _LEAF - n
+    if not pad:
+        return H
+    Hp = jnp.zeros((B, n + pad, n + pad), H.dtype)
+    Hp = Hp.at[:, :n, :n].set(H)
+    return Hp.at[:, n:, n:].set(jnp.eye(pad, dtype=H.dtype))
+
+
+def schur_size(n: int, dtype) -> int:
+    """The size ``spd_inverse_fast`` / ``spd_solve_fast`` factorize an
+    (n, n) operand of ``dtype`` at: the next multiple of 128 on the Schur
+    path, else n.  Callers that build the operand elementwise can build it
+    at this size directly (identity-padded) and skip the pad copy."""
+    leaf = _leaf_for(jax.ShapeDtypeStruct((n, n), dtype))
+    if leaf is None or (n <= _GJ_MAX and leaf is _sweep_leaf):
+        return n
+    return -(-n // _LEAF) * _LEAF
+
+
+def _jacobi(H):
+    """``d = diag(H)^-1/2`` and the unit-diagonal ``D H D``."""
+    diag = jnp.diagonal(H, axis1=-2, axis2=-1)
+    d = jax.lax.rsqrt(jnp.maximum(diag, 1e-30))           # (B, n)
+    return d, H * d[..., :, None] * d[..., None, :]
+
+
+def spd_inverse_fast(H, precision: str = "highest", equilibrate: bool = True):
+    """SPD inverse of (B, n, n).  f32: Schur recursion over GEMMs with
+    sweep leaves (``n`` identity-padded to a multiple of 128), or the
+    batch-major Gauss-Jordan at n <= _GJ_MAX; other dtypes: Cholesky.
+
+    With ``equilibrate=True`` the input is Jacobi-equilibrated first
+    (``H' = D H D`` with ``D = diag(H)^-1/2``, so diag(H') = 1) and the
+    result unscaled as ``H^-1 = D H'^-1 D``.  Without this, matrices with
+    extreme diagonal dynamic range — e.g. the interior-point Schur
+    complement ``Rt + diag(1/d)`` whose diagonal spans ~1e8 near
+    convergence — lose all accuracy in a fixed-order f32 sweep (observed
+    as NaNs in the OptNet solver).  Callers whose operand is already
+    equilibrated (the box-QP solver Jacobi-scales Q before adding rho I)
+    pass ``equilibrate=False`` and skip four full (B, n, n) passes."""
+    leaf = _leaf_for(H)
+    if leaf is None:
+        return spd_inverse(H)
+    ee = functools.partial(jnp.einsum, precision=precision,
+                           preferred_element_type=H.dtype)
+    d, Hs = _jacobi(H) if equilibrate else (None, H)
+    n = H.shape[-1]
+    if n <= _GJ_MAX and leaf is _sweep_leaf:
+        Hi = _gj_inverse_small(Hs)
+    else:
+        Hi = _schur_inverse(_pad_to_leaf(Hs), ee, leaf)[:, :n, :n]
+    if d is None:
+        return Hi
+    return Hi * d[..., :, None] * d[..., None, :]
+
+
 def spd_solve_fast(H, R, equilibrate: bool = True,
                    precision: str = "highest"):
-    """Solve ``H X = R`` for SPD (B, n, n) H and (B, n, k) R.  On TPU f32:
-    Jacobi-equilibrated Schur-recursion solve with sweep leaves (cheaper
-    than materializing H^-1 when k << n, e.g. the one-shot backward-pass
-    solve); elsewhere a Cholesky solve.
+    """Solve ``H X = R`` for SPD (B, n, n) H and (B, n, k) R.  f32:
+    Jacobi-equilibrated Schur-recursion solve (cheaper than materializing
+    H^-1 when k << n, e.g. the one-shot backward-pass solve); other
+    dtypes: a Cholesky solve.
 
     ``equilibrate=False`` skips the internal diag-rescale passes — pass it
     when the operand is already (approximately) unit-diagonal; callers that
     build H elementwise can fuse the equilibration into the build for free
     (see box_qp_grad_fixed_point).
 
-    ``precision`` controls the recursion GEMMs: "highest" (6-pass bf16,
-    f32-exact, solve residual ~2e-6 relative) for forward factorizations
-    that feed 1e-5-tolerance residual checks; "high" (3-pass bf16, ~2x
-    faster on the MXU, residual ~7e-6 relative) is enough for GRADIENT
-    solves, whose consumers tolerate 1e-4-class relative error."""
-    if _FORCE_LAX:
-        leaf = spd_inverse
-    elif jax.default_backend() != "tpu" or H.dtype != jnp.float32:
+    ``precision`` controls the recursion GEMMs."""
+    leaf = _leaf_for(H)
+    if leaf is None:
         return chol_solve(lax_linalg.cholesky(H), R)
-    else:
-        leaf = _sweep_leaf
-    import functools
     ee = functools.partial(jnp.einsum, precision=precision,
                            preferred_element_type=H.dtype)
     if equilibrate:
-        diag = jnp.diagonal(H, axis1=-2, axis2=-1)
-        d = jax.lax.rsqrt(jnp.maximum(diag, 1e-30))     # (B, n)
-        Hs = H * d[..., :, None] * d[..., None, :]
+        d, Hs = _jacobi(H)
         Rs = R * d[..., :, None]
     else:
-        d = None
-        Hs, Rs = H, R
+        d, Hs, Rs = None, H, R
     n = H.shape[-1]
     if n <= _GJ_MAX and leaf is _sweep_leaf:
-        Hi = _gj_inverse_small(Hs)
-        X = ee("...ij,...jk->...ik", Hi, Rs)
+        X = ee("...ij,...jk->...ik", _gj_inverse_small(Hs), Rs)
     else:
-        n_pad = -(-n // _LEAF) * _LEAF
-        pad = n_pad - n
-        if pad:
-            B, k = H.shape[0], R.shape[-1]
-            Hp = jnp.zeros((B, n_pad, n_pad), H.dtype)
-            Hp = Hp.at[:, :n, :n].set(Hs)
-            Hp = Hp.at[:, n:, n:].set(jnp.eye(pad, dtype=H.dtype))
-            Rp = jnp.zeros((B, n_pad, k), R.dtype)
-            Rp = Rp.at[:, :n, :].set(Rs)
-            X = _schur_solve_rec(Hp, Rp, ee, leaf)[:, :n, :]
-        else:
-            X = _schur_solve_rec(Hs, Rs, ee, leaf)
+        Hp = _pad_to_leaf(Hs)
+        Rp = jnp.pad(Rs, ((0, 0), (0, Hp.shape[-1] - n), (0, 0)))
+        X = _schur_solve_rec(Hp, Rp, ee, leaf)[:, :n, :]
     if d is None:
         return X
     return X * d[..., :, None]
 
 
+@pytree.dataclass
+class KKTFactors:
+    """Factorization state of the reduced KKT operator.
+
+    'inverse' mode keeps the Schur reduction IMPLICIT:
+    ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces ``W = H^-1 A^T``,
+    ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1`` — the reduced inverse
+    ``P = Hinv - WS W^T`` is applied as one (B, n, n) GEMV plus two
+    rank-``n_eq`` corrections (n_eq is tiny in this workload), which is
+    the same per-iteration memory traffic as a materialized ``P`` without
+    ever building the extra (B, n, n) operand (0.5 GB at the flagship
+    shape).
+
+    ``L`` is chol(H) in 'cholesky' mode, else None.
+    ``W``/``WS``/``Sinv`` are None when n_eq == 0.
+    """
+
+    L: Optional[jax.Array]
+    W: Optional[jax.Array]
+    Sinv: Optional[jax.Array]
+    Hinv: Optional[jax.Array] = None
+    WS: Optional[jax.Array] = None
+
+
 def factorize_kkt(Q, rho, A, *, mode: str = "inverse",
-                  s_reg: float = 0.0, materialize_p: bool = False,
-                  equilibrate: bool = True) -> KKTFactors:
+                  s_reg: float = 0.0, equilibrate: bool = True) -> KKTFactors:
     """Factorize ``M = [[Q + rho I, A^T], [A, 0]]`` (batched).
 
     Q:   (B, n, n) SPD
@@ -355,8 +343,6 @@ def factorize_kkt(Q, rho, A, *, mode: str = "inverse",
     A:   (B, m, n) or None
     s_reg: optional Tikhonov regularizer added to the Schur complement
       (used by the backward pass where masked A rows can lose rank).
-    materialize_p: build the dense reduced inverse ``P`` (needed only by
-      consumers of a single dense operator, e.g. the Pallas fused step).
     equilibrate: passed to ``spd_inverse_fast`` — pass False when Q is
       already Jacobi-equilibrated (the solver scaling path).
     """
@@ -375,8 +361,7 @@ def factorize_kkt(Q, rho, A, *, mode: str = "inverse",
         # the Schur-complement pieces are plain GEMMs against it.
         Hinv = spd_inverse_fast(H, equilibrate=equilibrate)
         if A is None:
-            return KKTFactors(P=Hinv if materialize_p else None, L=None,
-                              W=None, Sinv=None, Hinv=Hinv)
+            return KKTFactors(L=None, W=None, Sinv=None, Hinv=Hinv)
         At = jnp.swapaxes(A, -1, -2)
         W = jnp.einsum("...ij,...jk->...ik", Hinv, At,
                        preferred_element_type=Q.dtype)   # (B, n, m)
@@ -387,16 +372,11 @@ def factorize_kkt(Q, rho, A, *, mode: str = "inverse",
         Sinv = spd_inverse(S)
         WS = jnp.einsum("...im,...mk->...ik", W, Sinv,
                         preferred_element_type=Q.dtype)
-        if materialize_p:
-            P = Hinv - jnp.einsum("...im,...jm->...ij", WS, W,
-                                  preferred_element_type=Q.dtype)
-            return KKTFactors(P=P, L=None, W=W, Sinv=Sinv, Hinv=Hinv,
-                              WS=WS)
-        return KKTFactors(P=None, L=None, W=W, Sinv=Sinv, Hinv=Hinv, WS=WS)
+        return KKTFactors(L=None, W=W, Sinv=Sinv, Hinv=Hinv, WS=WS)
 
     L = lax_linalg.cholesky(H)
     if A is None:
-        return KKTFactors(P=None, L=L, W=None, Sinv=None)
+        return KKTFactors(L=L, W=None, Sinv=None)
     At = jnp.swapaxes(A, -1, -2)
     W = chol_solve(L, At)                       # (B, n, m)
     S = jnp.einsum("...ij,...jk->...ik", A, W,
@@ -404,7 +384,7 @@ def factorize_kkt(Q, rho, A, *, mode: str = "inverse",
     if s_reg:
         S = S + s_reg * jnp.eye(S.shape[-1], dtype=S.dtype)
     Sinv = spd_inverse(S)
-    return KKTFactors(P=None, L=L, W=W, Sinv=Sinv)
+    return KKTFactors(L=L, W=W, Sinv=Sinv)
 
 
 def kkt_apply(f: KKTFactors, r, b) -> Tuple[jax.Array, Optional[jax.Array]]:
@@ -412,10 +392,9 @@ def kkt_apply(f: KKTFactors, r, b) -> Tuple[jax.Array, Optional[jax.Array]]:
 
     r: (B, n); b: (B, m) or None.  Returns (x, nu).
     """
-    dense = f.P if f.P is not None else f.Hinv
     if f.W is None:
-        if dense is not None:
-            x = jnp.einsum("...ij,...j->...i", dense, r,
+        if f.Hinv is not None:
+            x = jnp.einsum("...ij,...j->...i", f.Hinv, r,
                            preferred_element_type=r.dtype)
         else:
             x = chol_solve(f.L, r)
@@ -425,15 +404,7 @@ def kkt_apply(f: KKTFactors, r, b) -> Tuple[jax.Array, Optional[jax.Array]]:
                       preferred_element_type=r.dtype)
     nu = jnp.einsum("...mk,...k->...m", f.Sinv, Wt_r - b,
                     preferred_element_type=r.dtype)
-    if f.P is not None:
-        # x = P r + W Sinv b
-        Sb = jnp.einsum("...mk,...k->...m", f.Sinv, b,
-                        preferred_element_type=r.dtype)
-        x = (jnp.einsum("...ij,...j->...i", f.P, r,
-                        preferred_element_type=r.dtype)
-             + jnp.einsum("...im,...m->...i", f.W, Sb,
-                          preferred_element_type=r.dtype))
-    elif f.Hinv is not None:
+    if f.Hinv is not None:
         # Implicit P: x = Hinv r - W nu (one dense GEMV + rank-m pieces).
         y = jnp.einsum("...ij,...j->...i", f.Hinv, r,
                        preferred_element_type=r.dtype)
@@ -447,16 +418,16 @@ def kkt_apply(f: KKTFactors, r, b) -> Tuple[jax.Array, Optional[jax.Array]]:
 
 
 def kkt_step_operator(f: KKTFactors, b):
-    """Precompute ``(P_eff, q)`` so the hot-loop solve is
-    ``x = P_eff r - WS (W^T r) + q`` (the middle term drops when P is
-    materialized or n_eq == 0).
+    """Precompute ``(Hinv, q)`` so the hot-loop solve is
+    ``x = Hinv r - WS (W^T r) + q`` (the middle term drops when
+    n_eq == 0).
 
     In 'inverse' mode with equality constraints, ``q = W Sinv b`` is constant
     across iterations, so the per-iteration work collapses to one dense
     GEMV plus two rank-``n_eq`` corrections.
     Returns (P_eff, q) or None if not in inverse mode.
     """
-    dense = f.P if f.P is not None else f.Hinv
+    dense = f.Hinv
     if dense is None:
         return None
     if f.W is None or b is None:

@@ -1,11 +1,12 @@
 """Matmul-precision scoping for solver entry points.
 
-On TPU, f32 ``jnp.einsum``/``dot`` default to fast bf16 MXU passes (error
-~1e-2 relative) — catastrophic for a solver targeting 1e-5 KKT residuals:
-the unchecked equality residual silently reaches O(0.1).  Every solver
-entry point is wrapped in ``jax.default_matmul_precision("highest")``
-(6-pass f32-accurate MXU); the per-iteration GEMV is HBM-bound, so this
-costs ~nothing on TPU while restoring full f32 accuracy.
+On a GPU an f32 ``jnp.einsum``/``dot`` at default precision may run in
+TF32 on the tensor cores (about three decimal digits) — too coarse for a
+solver targeting 1e-5 KKT residuals: the unchecked equality residual
+silently grows.  Every solver entry point is wrapped in
+``jax.default_matmul_precision("highest")``, which keeps f32 products in
+FP32 on the CUDA cores; the per-iteration GEMV is HBM-bound, so this
+costs little while restoring full f32 accuracy.
 """
 
 from __future__ import annotations

@@ -38,13 +38,13 @@ def _safe_colnorm(norms):
 
 
 def _scale_pad_q(Q, D, pad):
-    """One fused pass producing the scaled AND lane-padded operand
+    """One fused pass producing the scaled AND padded operand
     ``blockdiag(D Q D, I_pad)``.
 
     Written as pad -> elementwise so XLA fuses it into a single loop over
     the padded output (one read of Q, one padded write) instead of the
     scale-then-copy two-pass sequence — saves a full (B, n, n) HBM
-    round-trip per solve (~1.1 ms at the flagship shape)."""
+    round-trip per solve."""
     if pad == 0:
         return D[..., :, None] * Q * D[..., None, :]
     n = Q.shape[-1]
@@ -62,7 +62,7 @@ def scale_problem(Q, p, A, b, lb, ub, beta=None, pad: int = 0
     """Compute and apply the scaling.  All inputs in (B, n)/(B, m) layout.
 
     With ``pad > 0`` the returned ``Q`` is the scaled operand padded to
-    ``n + pad`` with an identity block (the lane-aligned factorization
+    ``n + pad`` with an identity block (the aligned factorization
     operand — see ``_scale_pad_q``), and ``A`` gains ``pad`` zero columns;
     all (B, n)-shaped outputs stay unpadded (padding them is cheap at the
     consumer)."""
@@ -103,13 +103,13 @@ def scale_problem(Q, p, A, b, lb, ub, beta=None, pad: int = 0
 
 
 def _scale_pad_q_rho(Q, D, pad, rho):
-    """One fused pass producing the scaled, lane-padded FACTORIZATION
+    """One fused pass producing the scaled, padded FACTORIZATION
     operand ``blockdiag(D Q D, I_pad) + rho * blockdiag(I_n, 0)``.
 
     Same single-HBM-pass fusion as ``_scale_pad_q`` with the ADMM diagonal
     shift folded in: the solver's factorization consumes ``H = Q' + rho I``
     directly, so building Q' and then H separately would cost an extra
-    full (B, n, n) round trip (~1.5 ms at the flagship shape).  The pad
+    full (B, n, n) round trip.  The pad
     block is exactly the identity (rho is NOT added there), which keeps
     the padded coordinates' factor decoupled and lets refactorization
     shift only the leading-block diagonal."""
@@ -147,7 +147,7 @@ class ScaledProblemH(NamedTuple):
 def scale_problem_h(Q, p, A, b, lb, ub, rho, beta=None, pad: int = 0,
                     scale: bool = True):
     """Fused variant of ``scale_problem`` emitting ``H = D Q D + rho I``
-    (lane-padded) directly.
+    (padded) directly.
 
     ``rho`` is a callable ``rho(D, q_fro) -> (B,)`` receiving the scaling
     vector and the Frobenius norm of the SCALED Q (computed here as the

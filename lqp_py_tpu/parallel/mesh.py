@@ -1,12 +1,14 @@
 """Device-mesh construction and multi-host initialization.
 
 The reference is single-process/single-device (SURVEY.md §2: no DP/TP/PP,
-no NCCL/MPI).  The TPU-native equivalent is batch-sharded data parallelism
+no NCCL/MPI).  The batched equivalent is batch-sharded data parallelism
 over a ``jax.sharding.Mesh``: the ADMM state is embarrassingly parallel
 over the batch axis; the only cross-chip communication the algorithm needs
 is the all-reduce hidden inside the global convergence test
-(``jnp.all(is_optimal)`` in the while condition), which XLA lowers to an
-ICI collective automatically under GSPMD.
+(``jnp.all(is_optimal)`` in the while condition), which XLA lowers to a
+collective (NCCL on GPUs) automatically under GSPMD.  Every card reaches
+every other at the same rate, so the mesh is flat: its shape follows the
+algorithm alone.
 
 A second 'tp' axis is exposed for sharding the n_x (KKT operator) axis of
 very large single problems and for tensor-parallel layers feeding the QP.

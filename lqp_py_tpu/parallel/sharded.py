@@ -4,7 +4,7 @@ Two styles:
 
 - ``boxqp_sharded`` / ``solve_box_qp_sharded``: GSPMD — annotate the batch
   axis with a NamedSharding and jit; XLA partitions every batched op and
-  inserts the convergence all-reduce over ICI.  This is the recommended
+  inserts the convergence all-reduce across devices.  This is the recommended
   path (works for the backward pass too, since the implicit VJP is just
   more batched linear algebra).
 - ``solve_box_qp_shard_map``: explicit shard_map over the 'dp' axis for

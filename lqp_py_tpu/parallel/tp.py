@@ -3,21 +3,21 @@
 The batch axis ('dp') is embarrassingly parallel; the second mesh axis
 'tp' exists for the other scaling direction SURVEY §5 calls "the long
 axis": a single problem whose n_x makes the (B, n, n) reduced inverse too
-large for one chip's HBM (n=4096 at B=128 f32 is 8.6 GB for ``P`` alone).
+large for one card's HBM (n=4096 at B=128 f32 is 8.6 GB for ``H^-1``
+alone).
 
 Here the column (last) axis of every n x n operator — Q, H = Q + rho I,
-the Schur-recursion intermediates, and the materialized reduced inverse
-``P`` — is sharded over 'tp' via GSPMD: inputs are placed with
+the Schur-recursion intermediates, and the materialized inverse
+``H^-1`` — is sharded over 'tp' via GSPMD: inputs are placed with
 ``P(dp, None, tp)`` shardings and XLA's SPMD partitioner propagates them
-through the whole solve, turning the hot-loop GEMV ``x = P r`` into a
-column-sharded partial product + psum over ICI, and partitioning the
-factorization GEMMs the same way.
+through the whole solve, turning the hot-loop GEMV ``x = H^-1 r`` into a
+column-sharded partial product + all-reduce across cards, and
+partitioning the factorization GEMMs the same way.
 
-The one op XLA cannot partition is the Mosaic sweep kernel (a custom
+The one op XLA cannot partition is the Pallas sweep kernel (a custom
 call), so this path forces the pure-lax Cholesky leaves
-(``ops.linalg.lax_linalg_only``) — slower per FLOP than the sweep path but
-the only option beyond one chip, which is exactly when this entry point is
-the right tool.
+(``ops.linalg.lax_linalg_only``) — slower than the sweep leaves on one
+card but partitionable, which is what this entry point is for.
 
 Verified in tests/test_parallel.py: results match the unsharded solve on a
 virtual 8-device mesh, and XLA's per-device memory analysis confirms the

@@ -13,10 +13,10 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from lqp_py_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class BoxQPSolution:
     """Batched box-QP solution.
 
@@ -41,13 +41,13 @@ class BoxQPSolution:
     primal_infeasible: Optional[jax.Array] = None
     #: (K, 3) ring buffer of ``[iteration, max primal, max dual]`` rows —
     #: the last K residual checks (config.residual_trace = K > 0), rows not
-    #: yet written hold iteration -1.  Mid-solve observability that works
-    #: on platforms without host callbacks (the reference's verbose prints,
+    #: yet written hold iteration -1.  Mid-solve observability kept on the
+    #: device, without host callbacks (the reference's verbose prints,
     #: solve_box_qp_admm_torch.py:289-294, need the host).  None when off.
     residual_trace: Optional[jax.Array] = None
 
 
-@struct.dataclass
+@pytree.dataclass
 class QPSolution:
     """Batched general-QP solution (equality + linear inequality)."""
 
@@ -63,7 +63,7 @@ class QPSolution:
     primal_infeasible: Optional[jax.Array] = None
 
 
-@struct.dataclass
+@pytree.dataclass
 class EqQPSolution:
     """Solution of an equality-constrained (or unconstrained) QP."""
 

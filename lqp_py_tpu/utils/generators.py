@@ -95,8 +95,8 @@ def kkt_residuals(Q, p, A, b, lb, ub, x, lams, nus):
     complementarity residuals of a box-QP solution (infinity norms).
 
     lams is (B, 2n) = [lambda_lb; lambda_ub] (both >= 0).  Matmuls run at
-    "highest" precision — on TPU the default bf16 passes would corrupt the
-    oracle itself.
+    "highest" precision — the default f32 precision on a GPU may run in
+    TF32, which would corrupt the oracle itself.
     """
     import jax as _jax
     with _jax.default_matmul_precision("highest"):

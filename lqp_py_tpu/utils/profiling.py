@@ -5,9 +5,8 @@ scripts (SURVEY.md §5).  Here:
 
 - ``trace(logdir)``: context manager around ``jax.profiler`` producing a
   TensorBoard-compatible device trace of everything inside.
-- ``timed(fn)``: robust steady-state wall-clock timing of a jitted callable
-  (compiles first, forces completion with a host read — plain
-  ``block_until_ready`` can be lazy on experimental remote platforms).
+- ``timed(fn)``: steady-state wall-clock timing of a jitted callable
+  (compiles first, waits for the device with ``block_until_ready``).
 - ``solve_stats(sol)``: summarize a solution pytree (iterations, residuals,
   per-element convergence) as a plain dict for logging.
 """
@@ -32,13 +31,7 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-def force(tree):
-    """Block until every array in the pytree is fully computed."""
-    jax.block_until_ready(tree)
-    leaves = jax.tree_util.tree_leaves(tree)
-    if leaves:
-        _ = float(jnp.ravel(jnp.asarray(leaves[0]))[0])
-    return tree
+force = jax.block_until_ready
 
 
 def timed(fn: Callable, *args, n: int = 5, warmup: int = 1) -> Dict:

@@ -179,7 +179,7 @@ int lqp_solve_box_qp(
 }
 
 // Batched front-end: loops over problems (the CPU baseline is sequential by
-// design; the TPU path is the batched one).
+// design; the JAX path is the batched one).
 int lqp_solve_box_qp_batch(
     int n_batch, int n, int m,
     const double* Q, const double* p, const double* A, const double* b,

@@ -129,10 +129,7 @@ def test_jit_and_vmap_compat():
 def test_box_anderson_acceleration_hard_set():
     """Safeguarded AA on the box ADMM fixed point: fewer iterations on the
     ill-conditioned hard set, same solution (tolerance scale), f32-safe,
-    neutral on an easy problem, and rejected in combination with the
-    Pallas fused step."""
-    import pytest as _pytest
-
+    neutral on an easy problem."""
     from lqp_py_tpu import box_qp_control
     from lqp_py_tpu.utils.generators import generate_hard_qp
 
@@ -159,9 +156,6 @@ def test_box_anderson_acceleration_hard_set():
         tiny = 8 * jnp.finfo(dtype).eps
         viol = jnp.maximum(jnp.maximum(args[4] - z, z - args[5]), 0.0)
         assert float(jnp.max(viol)) <= tiny, dtype
-
-    with _pytest.raises(ValueError, match="use_pallas_step"):
-        box_qp_control(acceleration=10, use_pallas_step=True)
 
 
 def test_acceleration_unroll_rejected():

@@ -10,14 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lqp_py_tpu import BoxQPConfig
-from lqp_py_tpu.models.train import (init_params, make_train_scan)
-from lqp_py_tpu.utils.checkpoint import (TrainState, checkpointed_run,
+# orbax is an optional extra (checkpoint/resume only).
+pytest.importorskip("orbax.checkpoint")
+
+from lqp_py_tpu import BoxQPConfig  # noqa: E402
+from lqp_py_tpu.models.train import (init_params, make_train_scan)  # noqa: E402
+from lqp_py_tpu.utils.checkpoint import (TrainState, checkpointed_run,  # noqa: E402
                                          init_train_state,
                                          latest_checkpoint,
                                          restore_train_state,
                                          save_train_state)
-from lqp_py_tpu.utils.generators import create_qp_data
+from lqp_py_tpu.utils.generators import create_qp_data  # noqa: E402
 
 N_X, N_FEAT, B, MB, EPOCHS = 8, 4, 16, 8, 6
 

@@ -1,4 +1,4 @@
-"""Cross-solver agreement: JAX TPU solver vs the independent C++ and NumPy
+"""Cross-solver agreement: the batched JAX solver vs the independent C++ and NumPy
 CPU implementations (the reference validates against SCS/cvxpy this way,
 demo/demo_solve_box_qp.py:62-73)."""
 
@@ -76,7 +76,7 @@ def test_numpy_stateful_wrapper():
 def test_numpy_scaling_and_adaptive_rho_ill_conditioned():
     """The oracle's scaled + adaptive-rho path (solve_box_qp_admm.py:125-234
     parity) on a badly conditioned problem: without scaling the plain
-    iteration needs far more iterations; both must agree with the TPU
+    iteration needs far more iterations; both must agree with the JAX
     solver's solution."""
     from lqp_py_tpu import BoxQPConfig, solve_box_qp
 
@@ -99,12 +99,12 @@ def test_numpy_scaling_and_adaptive_rho_ill_conditioned():
     assert not plain["converged"] or scaled["iter"] < plain["iter"], (
         scaled["iter"], plain["iter"])
 
-    tpu = solve_box_qp(jnp.asarray(Q)[None], jnp.asarray(p)[None],
+    jx = solve_box_qp(jnp.asarray(Q)[None], jnp.asarray(p)[None],
                        None, None, jnp.asarray(lb)[None],
                        jnp.asarray(ub)[None],
                        config=BoxQPConfig(eps_abs=1e-9, eps_rel=1e-9,
                                           max_iters=200000))
     # eps is relative to the dual norm (~|Qx| ~ 1e4 here), so absolute
     # x agreement is ~1e-5.
-    np.testing.assert_allclose(np.asarray(tpu.x)[0], scaled["x"],
+    np.testing.assert_allclose(np.asarray(jx.x)[0], scaled["x"],
                                rtol=1e-4, atol=5e-5)

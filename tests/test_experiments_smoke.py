@@ -1,16 +1,12 @@
 """Smoke-run the standalone experiment scripts at tiny sizes.
 
-The capture plan (tools/capture_all.sh) runs these unattended on the real
-TPU with multi-hour timeouts; a latent crash there wastes chip time and an
-entire capture window.  These tests execute each script end-to-end (tiny
-shapes, CPU) in a scratch cwd and check the artifact schema the README
-renderer consumes, then run the renderer itself against copies of the
-repo's real artifacts so a renderer bug cannot survive to capture time.
+A latent crash in an experiment script would otherwise first show on the
+GPU, where it wastes the run.  These tests execute each script end-to-end
+(tiny shapes, CPU) in a scratch cwd and check the artifact schema.
 """
 
 import json
 import runpy
-import shutil
 import sys
 from pathlib import Path
 
@@ -18,6 +14,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _run(script, argv, tmp_path, monkeypatch):
+    # The scripts point JAX's persistent compile cache at the repo; a test
+    # must not leave that setting behind in its worker.
+    from lqp_py_tpu.utils import compile_cache
+    monkeypatch.setattr(compile_cache, "enable_compile_cache", lambda: None)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(sys, "argv", [script.name] + argv)
     monkeypatch.syspath_prepend(str(REPO))
@@ -81,19 +81,3 @@ def test_aa_experiment_smoke(tmp_path, monkeypatch):
             assert cell[sk]["n_converged"] == 4, (key, sk)
         for sk in ("box_aa4", "gen_aa4"):
             assert cell[sk]["max_dev_vs_plain"] < 1e-2
-
-
-def test_render_readme_against_current_artifacts(tmp_path, monkeypatch):
-    """The renderer must succeed on the artifacts committed right now."""
-    for name in ("README.md", "exp1_results.json", "exp1_hard_results.json",
-                 "exp2_results.json", "exp_serving_results.json",
-                 "exp_aa_results.json", "ip_accuracy_results.json",
-                 "BENCH_detail.json"):
-        src = REPO / name
-        if src.exists():
-            shutil.copy(src, tmp_path / name)
-    _run(REPO / "experiments" / "render_readme.py", [], tmp_path, monkeypatch)
-    rendered = (tmp_path / "README.md").read_text()
-    assert "BEGIN AUTOGEN" in rendered and "END AUTOGEN" in rendered
-    # Every table row the renderer emits parses as markdown cells.
-    assert "| dz |" in rendered

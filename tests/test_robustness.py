@@ -39,14 +39,10 @@ def test_schur_inverse_extreme_diagonal_scaling():
     d = jax.lax.rsqrt(diag)
     Hs = H * d[..., :, None] * d[..., None, :]
 
-    import lqp_py_tpu.ops.pallas.spd_inverse as sw
-    orig = sw.sweep_spd_inverse
-    sw.sweep_spd_inverse = lambda X, **kw: orig(X, interpret=True)
-    try:
-        ee = functools.partial(jnp.einsum, precision="highest")
-        Hi = lin._schur_inverse(Hs, ee) * d[..., :, None] * d[..., None, :]
-    finally:
-        sw.sweep_spd_inverse = orig
+    from lqp_py_tpu.ops.pallas.spd_inverse import sweep_spd_inverse
+    leaf = functools.partial(sweep_spd_inverse, interpret=True)
+    ee = functools.partial(jnp.einsum, precision="highest")
+    Hi = lin._schur_inverse(Hs, ee, leaf) * d[..., :, None] * d[..., None, :]
     resid = jnp.einsum("bij,bjk->bik", H.astype(jnp.float64),
                        Hi.astype(jnp.float64)) - jnp.eye(n)
     assert float(jnp.max(jnp.abs(resid))) < 1e-3
